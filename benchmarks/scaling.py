@@ -1,18 +1,15 @@
-"""Multi-chip scaling benchmark: fps at 1..N devices.
+"""Multi-card scaling benchmark: frames/s at 1..N devices.
 
-Measures the BASELINE.md scaling target (>= 80% linear to 2 hosts) in both
-distribution modes:
+Measures both distribution modes:
 
 * data-parallel batches (``parallel/batch.py``) — the production streaming
   mode, expected ~linear;
 * row-tiled single pairs (``parallel/tiling.py``) — the latency mode whose
   vertical carry chain serializes part of the work.
 
-On a real pod slice run under the default platform; on a dev box it runs
-on the simulated CPU mesh (set ``--cpu-devices N``), which validates the
-harness and the sharding (not silicon speed). Multi-host: launch one
-process per host with ``jax.distributed`` env set; the mesh spans all
-processes automatically.
+Run on the GPUs of one host under the default platform; on a dev box it
+runs on the simulated CPU mesh (set ``--cpu-devices N``), which validates
+the harness and the sharding, not device speed.
 
 Output: one JSON line per device count.
 """
@@ -30,11 +27,11 @@ def measure(n_devices: int, height: int, width: int, disparities: int,
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.parallel.batch import batched_matcher
-    from stereo_match_tpu.parallel.mesh import make_mesh
-    from stereo_match_tpu.parallel.tiling import sgm_aggregate_sharded
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    from stereo_match.config import DisparityConfig
+    from stereo_match.parallel.batch import batched_matcher
+    from stereo_match.parallel.mesh import make_mesh
+    from stereo_match.parallel.tiling import sgm_aggregate_sharded
+    from stereo_match.ops.cost_volume import build_cost_volume
 
     devices = jax.devices()[:n_devices]
     rng = np.random.default_rng(0)
@@ -56,11 +53,9 @@ def measure(n_devices: int, height: int, width: int, disparities: int,
 
     # --- row-tiled single pair (8-path, halo mode) ---
     mesh_rows = make_mesh(batch=1, rows=n_devices, devices=devices)
-    h_pad = -(-height // (8 * n_devices)) * (8 * n_devices)
+    h_pad = -(-height // n_devices) * n_devices
     left = jnp.asarray(rng.uniform(0, 255, (h_pad, width)).astype(np.float32))
     right = jnp.asarray(rng.uniform(0, 255, (h_pad, width)).astype(np.float32))
-
-    import functools
 
     @jax.jit
     def tiled(l, r):

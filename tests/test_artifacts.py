@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from stereo_match_tpu.data.costbin import (
+from stereo_match.data.costbin import (
     external_volume_to_disparity, read_cost_bin, write_cost_bin,
 )
-from stereo_match_tpu.pipeline.artifacts import PairResult, StageStore, run_session
+from stereo_match.pipeline.artifacts import PairResult, StageStore, run_session
 
 
 def test_cost_bin_roundtrip(tmp_path, rng):

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from stereo_match_tpu.core.calibration import (
+from stereo_match.core.calibration import (
     CalibrationResult, calibrate_camera, chessboard_object_points,
     homography_dlt, undistort_image,
 )
-from stereo_match_tpu.core.camera import rodrigues
+from stereo_match.core.camera import rodrigues
 
 
 def _render_views(K, dist, n_views=6, cols=7, rows=5, seed=0):

@@ -5,9 +5,9 @@ import json
 import numpy as np
 import pytest
 
-from stereo_match_tpu.cli.main import main
-from stereo_match_tpu.data.image import image_save
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
+from stereo_match.cli.main import main
+from stereo_match.data.image import image_save
+from stereo_match.data.synthetic import box_scene, random_dot_pair
 
 
 @pytest.fixture()
@@ -73,7 +73,7 @@ def test_reproject_cli(tmp_path):
     out = str(tmp_path / "cloud.ply")
     assert main(["reproject", dp, "--output", out, "--focal", "100",
                  "--baseline", "0.5", "--min_value", "1"]) == 0
-    from stereo_match_tpu.data.ply import read_ply
+    from stereo_match.data.ply import read_ply
     pts, _ = read_ply(out)
     assert len(pts) == 32 * 48
 
@@ -109,9 +109,9 @@ def test_match_method_variants(tmp_path):
 def test_costbin_cli_end_to_end(tmp_path, rng):
     """smt costbin: synthetic .bin (write_cost_bin round-trip) -> SGM/WLS
     -> Q -> PLY, reproducing mapTo3D_mc_cnn.py:68-159."""
-    from stereo_match_tpu.data.costbin import write_cost_bin
-    from stereo_match_tpu.data.ply import read_ply
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    from stereo_match.data.costbin import write_cost_bin
+    from stereo_match.data.ply import read_ply
+    from stereo_match.ops.cost_volume import build_cost_volume
     H, W, D = 32, 64, 16
     gt = box_scene(H, W, 3.0, 9.0)
     left, right = random_dot_pair(H, W, gt, blur=0.8, seed=5)
@@ -167,7 +167,7 @@ def test_train_mccnn_cli(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "saved to" in out
     # checkpoint round-trips through the match CLI's loader
-    from stereo_match_tpu.models.mccnn import load_params
+    from stereo_match.models.mccnn import load_params
     params = load_params(ck)
     assert params is not None
     dp = str(tmp_path / "d.png")
@@ -177,31 +177,30 @@ def test_train_mccnn_cli(tmp_path, capsys):
 
 
 def test_stream_cli(tmp_path, capsys):
-    """`smt stream`: frame sequence -> per-frame disparity files through
-    the stage pipeline (census payload mode on the virtual mesh), and the
-    outputs match the single-device fallback path exactly."""
+    """`smt stream`: frame sequence -> per-frame disparity files, each equal
+    to the filtered map of the compiled matcher on that pair."""
     import os
+
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.image import image_read, to_grayscale
+    from stereo_match.pipeline.stereo import StereoMatcher
 
     gt = box_scene(32, 64, 2.0, 8.0)
     for i in range(4):
         l, r = random_dot_pair(32, 64, gt, blur=0.8, seed=60 + i)
         image_save(str(tmp_path / f"l_{i}.png"), l)
         image_save(str(tmp_path / f"r_{i}.png"), r)
-    out4 = str(tmp_path / "piped")
-    assert main(["stream", "--left-glob", str(tmp_path / "l_*.png"),
-                 "--right-glob", str(tmp_path / "r_*.png"),
-                 "--out-dir", out4, "--stages", "4",
-                 "--num_disparities", "16"]) == 0
     out1 = str(tmp_path / "seq")
     assert main(["stream", "--left-glob", str(tmp_path / "l_*.png"),
                  "--right-glob", str(tmp_path / "r_*.png"),
-                 "--out-dir", out1, "--stages", "1",
-                 "--num_disparities", "16"]) == 0
+                 "--out-dir", out1, "--num_disparities", "16"]) == 0
+    matcher = StereoMatcher(DisparityConfig(num_disparities=16))
     for i in range(4):
-        a = np.load(os.path.join(out4, f"disp_{i:04d}.npy"))
-        b = np.load(os.path.join(out1, f"disp_{i:04d}.npy"))
-        assert a.shape == (32, 64)
-        np.testing.assert_allclose(a, b, atol=5e-3)
+        got = np.load(os.path.join(out1, f"disp_{i:04d}.npy"))
+        assert got.shape == (32, 64)
+        want = matcher(to_grayscale(image_read(str(tmp_path / f"l_{i}.png"))),
+                       to_grayscale(image_read(str(tmp_path / f"r_{i}.png"))))
+        np.testing.assert_array_equal(got, np.asarray(want[1]))
 
 
 def test_costbin_d228_contract(tmp_path):
@@ -210,9 +209,9 @@ def test_costbin_d228_contract(tmp_path):
     228 is not a multiple of 8 or 128 — it exercises the generic XLA
     aggregation path end-to-end: .bin round-trip -> SGM -> WLS-refined
     disparity."""
-    from stereo_match_tpu.data.costbin import (external_volume_to_disparity,
-                                               read_cost_bin, write_cost_bin)
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    from stereo_match.data.costbin import (external_volume_to_disparity,
+                                           read_cost_bin, write_cost_bin)
+    from stereo_match.ops.cost_volume import build_cost_volume
     H, W, D = 24, 260, 228
     gt = box_scene(H, W, 4.0, 11.0)
     left, right = random_dot_pair(H, W, gt, blur=0.8, seed=9)

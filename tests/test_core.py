@@ -5,8 +5,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_match_tpu.config import DisparityConfig, load_settings
-from stereo_match_tpu.core.reproject import (
+from stereo_match.config import DisparityConfig, load_settings
+from stereo_match.core.reproject import (
     depth_to_points,
     disparity_to_depth,
     make_q_matrix,
@@ -14,7 +14,7 @@ from stereo_match_tpu.core.reproject import (
     reproject_image_to_3d,
     transform_points,
 )
-from stereo_match_tpu.eval.metrics import (
+from stereo_match.eval.metrics import (
     bad_pixel_rate, compare_disparities, density, end_point_error,
 )
 

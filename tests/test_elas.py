@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair, slanted_scene
-from stereo_match_tpu.eval.metrics import bad_pixel_rate, end_point_error
-from stereo_match_tpu.native import available, delaunay, rasterize_planes, speckle_filter_host
-from stereo_match_tpu.pipeline.elas import ElasConfig, elas_match, extract_support_points
+from stereo_match.data.synthetic import box_scene, random_dot_pair, slanted_scene
+from stereo_match.eval.metrics import bad_pixel_rate, end_point_error
+from stereo_match.native import available, delaunay, rasterize_planes, speckle_filter_host
+from stereo_match.pipeline.elas import ElasConfig, elas_match, extract_support_points
 
 
 def test_native_library_builds():
@@ -63,8 +63,8 @@ def test_elas_prior_helps_on_weak_texture():
     """With noise-degraded texture, the plane prior beats plain WTA."""
     gt = slanted_scene(96, 128, 3.0, 15.0)
     left, right = random_dot_pair(96, 128, gt, blur=2.2, noise=14.0, seed=5)
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
-    from stereo_match_tpu.ops.wta import subpixel_refine, wta_disparity
+    from stereo_match.ops.cost_volume import build_cost_volume
+    from stereo_match.ops.wta import subpixel_refine, wta_disparity
     import jax.numpy as jnp
     vol = build_cost_volume(jnp.asarray(left), jnp.asarray(right), 32)
     plain = np.asarray(subpixel_refine(vol, wta_disparity(vol)))
@@ -93,7 +93,7 @@ def test_elas_match_builds_volume_once(monkeypatch):
     """elas_match must reuse its _support_scores result for support-point
     extraction instead of rebuilding the cost volume (round-3 judge
     finding: double volume build per pair)."""
-    import stereo_match_tpu.pipeline.elas as elas_mod
+    import stereo_match.pipeline.elas as elas_mod
 
     calls = {"n": 0}
     orig = elas_mod._support_scores
@@ -112,12 +112,12 @@ def test_elas_match_builds_volume_once(monkeypatch):
 def test_elas_matched_quality_vs_sgm():
     """The round-4 judge gate, like-for-like: over the dense stage's own
     MATCHED pixels (the gap fill covers occlusions SGM leaves invalid,
-    so the filled map is scored separately in ACCURACY.json), ELAS must
+    so the filled map is scored separately by tools/accuracy_eval.py), ELAS must
     be within 2x of census-SGM's bad3 on its valid set."""
     import jax.numpy as jnp
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.data.synthetic import multi_box_scene
-    from stereo_match_tpu.pipeline.stereo import _match_core
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.synthetic import multi_box_scene
+    from stereo_match.pipeline.stereo import _match_core
 
     H, W, D = 150, 500, 64
     gt = multi_box_scene(H, W, background=8.0,

@@ -6,11 +6,11 @@ import os
 import numpy as np
 import pytest
 
-from stereo_match_tpu.data.arkit import build_npz, load_npz_frames, parse_session
-from stereo_match_tpu.data.image import image_read, image_save, normalize_to_uint8, to_grayscale
-from stereo_match_tpu.data.kitti import read_kitti_disparity, write_kitti_disparity
-from stereo_match_tpu.data.middlebury import read_calib, read_pfm, write_pfm
-from stereo_match_tpu.data.ply import read_ply, write_mesh_ply, write_ply
+from stereo_match.data.arkit import build_npz, load_npz_frames, parse_session
+from stereo_match.data.image import image_read, image_save, normalize_to_uint8, to_grayscale
+from stereo_match.data.kitti import read_kitti_disparity, write_kitti_disparity
+from stereo_match.data.middlebury import read_calib, read_pfm, write_pfm
+from stereo_match.data.ply import read_ply, write_mesh_ply, write_ply
 
 
 @pytest.mark.parametrize("binary", [False, True])

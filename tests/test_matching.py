@@ -6,17 +6,17 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair, slanted_scene
-from stereo_match_tpu.eval.metrics import bad_pixel_rate, end_point_error
-from stereo_match_tpu.ops.census import census_transform, hamming_distance
-from stereo_match_tpu.ops.cost_volume import (
+from stereo_match.data.synthetic import box_scene, random_dot_pair, slanted_scene
+from stereo_match.eval.metrics import bad_pixel_rate, end_point_error
+from stereo_match.ops.census import census_transform, hamming_distance
+from stereo_match.ops.cost_volume import (
     _box_filter, bt_cost_volume, build_cost_volume, census_cost_volume,
     sad_cost_volume, sobel_x_clipped,
 )
-from stereo_match_tpu.ops.sgm import (
+from stereo_match.ops.sgm import (
     PATH_DIRECTIONS_8, aggregate_direction, scan_direction, sgm_aggregate,
 )
-from stereo_match_tpu.ops.wta import (
+from stereo_match.ops.wta import (
     extract_disparity, from_fixed_point, lr_consistency_mask,
     right_disparity_from_volume, subpixel_refine, to_fixed_point,
     uniqueness_mask, wta_disparity,
@@ -325,11 +325,11 @@ def test_block_matcher_oracle_parity_vs_cv2_stereobm():
     (b) >=99% of pixels valid in both maps agree within 1 px, (c) the
     validity masks themselves agree on >=99% of pixels.
     """
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.data.synthetic import (multi_box_scene,
-                                                 random_dot_pair)
-    from stereo_match_tpu.eval.parity import opencv_bm_disparity
-    from stereo_match_tpu.pipeline.block_matching import BlockMatcher
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.synthetic import (multi_box_scene,
+                                             random_dot_pair)
+    from stereo_match.eval.parity import opencv_bm_disparity
+    from stereo_match.pipeline.block_matching import BlockMatcher
 
     H, W = 120, 256
     cfg = DisparityConfig(num_disparities=32, block_size=21,
@@ -353,9 +353,9 @@ def test_block_matcher_oracle_parity_vs_cv2_stereobm():
 def test_block_matcher_texture_threshold_rejects_flat_regions():
     """A textureless band must be invalidated by the texture test, as in
     OpenCV (sum|sobel| over the window below textureThreshold)."""
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-    from stereo_match_tpu.pipeline.block_matching import BlockMatcher
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.synthetic import box_scene, random_dot_pair
+    from stereo_match.pipeline.block_matching import BlockMatcher
 
     H, W = 96, 224
     gt = box_scene(H, W, 4.0, 10.0)

@@ -6,11 +6,14 @@ import numpy as np
 import optax
 import pytest
 
-from stereo_match_tpu.config import DisparityConfig
-from stereo_match_tpu.costs import MCCNNCost, make_cost_provider
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-from stereo_match_tpu.eval.metrics import bad_pixel_rate
-from stereo_match_tpu.models.mccnn import (
+# the model modules need flax, an optional dependency (pyproject "full")
+pytest.importorskip("flax")
+
+from stereo_match.config import DisparityConfig
+from stereo_match.costs import MCCNNCost, make_cost_provider
+from stereo_match.data.synthetic import box_scene, random_dot_pair
+from stereo_match.eval.metrics import bad_pixel_rate
+from stereo_match.models.mccnn import (
     PARTITION_RULES, hinge_loss, init_params, make_model, make_train_step,
     match_partition_rules, mccnn_cost_volume, sample_training_patches,
     shard_params, train,
@@ -93,7 +96,7 @@ def test_mccnn_cost_in_pipeline(model_and_params):
                           uniqueness_ratio=0, wls=False)
     provider = make_cost_provider(cfg, model, params)
     assert isinstance(provider, MCCNNCost)
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.pipeline.stereo import StereoMatcher
     raw, _ = StereoMatcher(cfg, cost_fn=provider)(left, right)
     bad3 = float(bad_pixel_rate(np.asarray(raw), gt, 3.0, 0.0))
     assert bad3 < 0.15, bad3
@@ -141,7 +144,7 @@ def test_sharded_train_step(model_and_params):
 
 
 def test_params_npz_roundtrip(model_and_params, tmp_path):
-    from stereo_match_tpu.models.mccnn import load_params_npz, save_params_npz
+    from stereo_match.models.mccnn import load_params_npz, save_params_npz
     model, params = model_and_params
     path = str(tmp_path / "ckpt.npz")
     save_params_npz(path, params)
@@ -155,9 +158,9 @@ def test_shipped_checkpoint_beats_census():
     census on clean scenes and beats it on noisy held-out scenes — the
     evidence that the learned cost is useful, not just plumbed (the
     reference ships pretrained nets, mc_cnn/script.py:9)."""
-    from stereo_match_tpu.data.synthetic import rough_scene
-    from stereo_match_tpu.models.mccnn import load_default_params
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.data.synthetic import rough_scene
+    from stereo_match.models.mccnn import load_default_params
+    from stereo_match.pipeline.stereo import StereoMatcher
 
     model = make_model("fast")
     params = load_default_params("fast")
@@ -184,62 +187,12 @@ def test_shipped_checkpoint_beats_census():
     assert noisy_m < 0.25, results                 # and is absolutely usable
 
 
-@pytest.mark.parametrize("arch,shape", [("fast", (40, 150)),
-                                        ("accurate", (33, 140))])
-def test_fused_tower_matches_flax(arch, shape):
-    """The all-VMEM Pallas tower (interpret mode) must equal model.apply
-    bitwise-ish in f32 — including the L-pixel border, where each layer
-    re-zeroes activations to reproduce flax's per-layer SAME padding."""
-    from stereo_match_tpu.models.mccnn import _tower_weight_stacks
-    from stereo_match_tpu.ops.pallas_kernels import mccnn_tower_pallas
-
-    H, W = shape
-    rng = np.random.default_rng(3)
-    img = jnp.asarray(rng.uniform(-1, 1, (H, W)), jnp.float32)
-    img2 = jnp.asarray(rng.uniform(-1, 1, (H, W)), jnp.float32)
-    model = make_model(arch)
-    params = init_params(model, jax.random.PRNGKey(1))
-    w1, w3, b = _tower_weight_stacks(model, params)
-    F, L = model.features, model.num_layers
-    feats = mccnn_tower_pallas(jnp.stack([img, img2]), w1, w3, b,
-                               num_layers=L, features=F, s_out=16,
-                               compute_dtype=jnp.float32, interpret=True)
-    for v, im in ((0, img), (1, img2)):
-        ref = np.moveaxis(
-            np.asarray(model.apply(params, im[None, ..., None])[0]), -1, 0)
-        f = np.asarray(feats[v])
-        got = np.moveaxis(f.reshape(-1, F, f.shape[1])[:H, :, 128:128 + W],
-                          1, 0)
-        np.testing.assert_allclose(got, ref, atol=2e-6)
-
-
-def test_fused_cost_volume_matches_xla_path():
-    """mccnn_cost_volume_fused (tower + flat Gram-band builder, exact
-    out_shape, in-kernel D-flip) == the XLA mccnn_cost_volume in f32."""
-    from stereo_match_tpu.models.mccnn import (mccnn_cost_volume,
-                                               mccnn_cost_volume_fused)
-
-    H, W, D = 50, 200, 128
-    rng = np.random.default_rng(5)
-    left = jnp.asarray(rng.uniform(0, 255, (H, W)), jnp.float32)
-    right = jnp.asarray(rng.uniform(0, 255, (H, W)), jnp.float32)
-    model = make_model("fast")
-    params = init_params(model, jax.random.PRNGKey(0))
-    ref = np.asarray(mccnn_cost_volume(model, params, left, right, D,
-                                       use_bf16=False))
-    got = np.asarray(mccnn_cost_volume_fused(
-        model, params, left, right, D, compute_dtype=jnp.float32,
-        interpret=True))
-    assert got.shape == (D, H, W)
-    np.testing.assert_allclose(got, ref, atol=1e-4)
-
-
 def test_shipped_accurate_checkpoint_beats_census():
     """The committed mccnn_accurate.npz (5x112 tower, the reference's
     `mb slow` analog — mc_cnn/script.py:10-11) must tie census on clean
     scenes and beat it on noisy held-out scenes, like the fast one."""
-    from stereo_match_tpu.data.synthetic import rough_scene
-    from stereo_match_tpu.models.mccnn import load_default_params
+    from stereo_match.data.synthetic import rough_scene
+    from stereo_match.models.mccnn import load_default_params
 
     model = make_model("accurate")
     params = load_default_params("accurate")
@@ -247,7 +200,7 @@ def test_shipped_accurate_checkpoint_beats_census():
                             uniqueness_ratio=15, disp12_max_diff=1,
                             wls=False)
     cfg_m = cfg_c.replace(cost="mccnn")
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.pipeline.stereo import StereoMatcher
     m_census = StereoMatcher(cfg_c)
     m_mccnn = StereoMatcher(cfg_m, cost_fn=MCCNNCost(model, params, cfg_m))
 
@@ -273,9 +226,9 @@ def test_checkpoint_transfers_out_of_renderer():
     learned cost must match or beat census, clean AND corrupted
     (round-4 judge finding #2: the previous dot-only checkpoint lost
     off-distribution)."""
-    from stereo_match_tpu.data.raytrace import render_stereo
-    from stereo_match_tpu.models.mccnn import load_default_params
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.data.raytrace import render_stereo
+    from stereo_match.models.mccnn import load_default_params
+    from stereo_match.pipeline.stereo import StereoMatcher
 
     model = make_model("fast")
     params = load_default_params("fast")
@@ -295,25 +248,3 @@ def test_checkpoint_transfers_out_of_renderer():
             bc.append(float(bad_pixel_rate(np.asarray(dc), gt, 3.0, 0.0)))
             bm.append(float(bad_pixel_rate(np.asarray(dm), gt, 3.0, 0.0)))
         assert np.mean(bm) <= np.mean(bc) + 0.005, (tag, bm, bc)
-
-
-def test_single_kernel_fused_volume_bit_equal():
-    """mccnn_fused_volume_pallas (ONE kernel: tower + Gram-band builder,
-    zero HBM feature slabs) must be bit-identical to the two-kernel
-    pipeline it replaces, for both archs, in f32."""
-    from stereo_match_tpu.models.mccnn import mccnn_cost_volume_fused
-
-    H, W, D = 34, 150, 128
-    rng = np.random.default_rng(7)
-    left = jnp.asarray(rng.uniform(0, 255, (H, W)), jnp.float32)
-    right = jnp.asarray(rng.uniform(0, 255, (H, W)), jnp.float32)
-    for arch in ("fast", "accurate"):
-        model = make_model(arch)
-        params = init_params(model, jax.random.PRNGKey(0))
-        two = np.asarray(mccnn_cost_volume_fused(
-            model, params, left, right, D, compute_dtype=jnp.float32,
-            interpret=True, single_kernel=False))
-        one = np.asarray(mccnn_cost_volume_fused(
-            model, params, left, right, D, compute_dtype=jnp.float32,
-            interpret=True, single_kernel=True))
-        np.testing.assert_array_equal(one, two)

@@ -5,8 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-from stereo_match_tpu.models.monodepth import (
+# the model modules need flax, an optional dependency (pyproject "full")
+pytest.importorskip("flax")
+
+from stereo_match.data.synthetic import box_scene, random_dot_pair
+from stereo_match.models.monodepth import (
     MonodepthNet, init_params, monodepth_loss, predict_disparity, train,
 )
 
@@ -57,8 +60,8 @@ def test_shipped_checkpoint_predicts_depth():
     calibration (mono depth is defined up to scale — the standard
     monodepth eval protocol) beats the best constant predictor."""
     import numpy as np
-    from stereo_match_tpu.data.raytrace import render_stereo
-    from stereo_match_tpu.models import monodepth as md
+    from stereo_match.data.raytrace import render_stereo
+    from stereo_match.models import monodepth as md
 
     model, params = md.load_default()
     corrs, cal_epe, const_epe = [], [], []
@@ -77,7 +80,7 @@ def test_shipped_checkpoint_predicts_depth():
 
 def test_infer_arch_roundtrip():
     import jax
-    from stereo_match_tpu.models import monodepth as md
+    from stereo_match.models import monodepth as md
     for arch in ("small", "full"):
         params = md.init_params(md.make_model(arch), jax.random.PRNGKey(0))
         assert md.infer_arch(params) == arch
@@ -91,8 +94,8 @@ def test_shipped_checkpoint_clears_half_constant_bar():
     depth structure, not a constant. (Protocol: affine fit and both
     EPEs over valid GT — occluded pixels have none.)"""
     import numpy as np
-    from stereo_match_tpu.data.raytrace import render_stereo
-    from stereo_match_tpu.models import monodepth as md
+    from stereo_match.data.raytrace import render_stereo
+    from stereo_match.models import monodepth as md
 
     model, params = md.load_default()
     HF, WF = 375, 1242

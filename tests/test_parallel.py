@@ -6,13 +6,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_match_tpu.config import DisparityConfig
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-from stereo_match_tpu.eval.metrics import bad_pixel_rate
-from stereo_match_tpu.ops.sgm import sgm_aggregate
-from stereo_match_tpu.parallel.batch import batched_matcher
-from stereo_match_tpu.parallel.mesh import make_mesh, volume_sharding
-from stereo_match_tpu.parallel.tiling import sgm_aggregate_sharded
+from stereo_match.config import DisparityConfig
+from stereo_match.data.synthetic import box_scene, random_dot_pair
+from stereo_match.eval.metrics import bad_pixel_rate
+from stereo_match.ops.sgm import sgm_aggregate
+from stereo_match.parallel.batch import batched_matcher
+from stereo_match.parallel.mesh import make_mesh, volume_sharding
+from stereo_match.parallel.tiling import sgm_aggregate_sharded
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_sharded_halo_full_predecessor_is_exact(rng):
 def test_sharded_halo_quality_on_structured_scene(mesh_rows):
     """On a real scene (structured costs) the SGM recurrence forgets the
     boundary state: 8-shard halo winners match single-chip almost surely."""
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    from stereo_match.ops.cost_volume import build_cost_volume
     gt = box_scene(64, 96)
     left, right = random_dot_pair(64, 96, gt, blur=0.8)
     vol = build_cost_volume(jnp.asarray(left), jnp.asarray(right), 16)
@@ -73,10 +73,9 @@ def test_sharded_halo_quality_on_structured_scene(mesh_rows):
 
 
 def test_sharded_8path_exact_parity():
-    """8-path exact mode is bit-exact vs single chip — including the
-    diagonals, whose lane-shifted carries chain inside the fused scan3's
-    (3, D, N) slab (W fits one N-tile here, so no internal seams)."""
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    """8-path exact mode is bit-exact vs single card — including the
+    diagonals, whose carries chain in the (8, D, W) slab."""
+    from stereo_match.ops.cost_volume import build_cost_volume
     mesh4 = make_mesh(batch=1, rows=4, devices=jax.devices()[:4])
     gt = box_scene(64, 96)
     left, right = random_dot_pair(64, 96, gt, blur=0.8)
@@ -88,9 +87,9 @@ def test_sharded_8path_exact_parity():
 
 
 def test_sharded_exact_int16_and_ragged_height():
-    """int16 volumes + H not divisible by rows*s_blk: the wrapper pads
-    with zero rows (carry-preserving) and slices back."""
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
+    """int16 volumes + H not divisible by rows: the wrapper pads with zero
+    rows (carry-preserving) and slices back."""
+    from stereo_match.ops.cost_volume import build_cost_volume
     mesh4 = make_mesh(batch=1, rows=4, devices=jax.devices()[:4])
     gt = box_scene(53, 96)
     left, right = random_dot_pair(53, 96, gt, blur=0.8)
@@ -106,8 +105,8 @@ def test_sharded_exact_int16_and_ragged_height():
 
 def test_sharded_on_real_scene_quality(mesh_rows):
     """Sharded end-to-end aggregation keeps bad-3px quality (box scene)."""
-    from stereo_match_tpu.ops.cost_volume import build_cost_volume
-    from stereo_match_tpu.ops.wta import extract_disparity
+    from stereo_match.ops.cost_volume import build_cost_volume
+    from stereo_match.ops.wta import extract_disparity
     gt = box_scene(64, 96)
     left, right = random_dot_pair(64, 96, gt, blur=0.8)
     vol = build_cost_volume(jnp.asarray(left), jnp.asarray(right), 32)
@@ -132,7 +131,7 @@ class TestDSharding:
     """Disparity-plane sharding (SURVEY §2 parallelism row 3)."""
 
     def _scene_volume(self, D=32, H=64, W=96):
-        from stereo_match_tpu.ops.cost_volume import build_cost_volume
+        from stereo_match.ops.cost_volume import build_cost_volume
         gt = box_scene(H, W, background=4.0, foreground=14.0)
         left, right = random_dot_pair(H, W, gt, blur=0.8, seed=2)
         vol = build_cost_volume(jnp.asarray(left), jnp.asarray(right), D,
@@ -141,9 +140,9 @@ class TestDSharding:
 
     def test_wta_dsharded_bit_exact(self):
         """pmin-combined WTA over 8 D-shards == single-chip WTA."""
-        from stereo_match_tpu.ops.wta import extract_disparity
-        from stereo_match_tpu.parallel.dsharding import (make_disp_mesh,
-                                                         wta_dsharded)
+        from stereo_match.ops.wta import extract_disparity
+        from stereo_match.parallel.dsharding import (make_disp_mesh,
+                                                     wta_dsharded)
         _, _, vol, _ = self._scene_volume()
         cfg = DisparityConfig(num_disparities=32, uniqueness_ratio=15,
                               disp12_max_diff=1)
@@ -154,7 +153,7 @@ class TestDSharding:
 
     def test_local_census_slices_assemble_to_reference(self):
         """Per-shard dynamic-offset census slices == the full volume."""
-        from stereo_match_tpu.parallel.dsharding import _local_census_volume
+        from stereo_match.parallel.dsharding import _local_census_volume
         left, right, vol, _ = self._scene_volume()
         l = jnp.asarray(left, jnp.float32)
         r = jnp.asarray(right, jnp.float32)
@@ -166,15 +165,14 @@ class TestDSharding:
 
     def test_match_dsharded_exact_vs_single_chip(self):
         """Cost build D-sharded -> all_to_all -> row SGM (exact chains) ->
-        row-local WTA == the single-chip Pallas pipeline."""
-        from stereo_match_tpu.ops.pallas_kernels import sgm_aggregate_pallas
-        from stereo_match_tpu.ops.wta import extract_disparity
-        from stereo_match_tpu.parallel.dsharding import (make_disp_mesh,
-                                                         match_dsharded)
+        row-local WTA == the single-card pipeline."""
+        from stereo_match.ops.wta import extract_disparity
+        from stereo_match.parallel.dsharding import (make_disp_mesh,
+                                                     match_dsharded)
         left, right, vol, gt = self._scene_volume()
         cfg = DisparityConfig(num_disparities=32, uniqueness_ratio=15,
                               disp12_max_diff=1, dtype="float32")
-        agg = sgm_aggregate_pallas(vol, cfg.P1, cfg.P2, 8, interpret=True)
+        agg = sgm_aggregate(vol, cfg.P1, cfg.P2, 8)
         single = np.asarray(extract_disparity(agg, uniqueness_ratio=15,
                                               disp12_max_diff=1))
         out = np.asarray(match_dsharded(left, right, cfg, make_disp_mesh(8),
@@ -198,7 +196,7 @@ def test_batched_matcher_dp(mesh_2x4):
     raw, filtered = fn(lefts, rights)
     assert raw.shape == (4, 32, 64)
     # each batch element equals the single-pair result
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.pipeline.stereo import StereoMatcher
     single, _ = StereoMatcher(cfg)(lefts[2], rights[2])
     np.testing.assert_allclose(np.asarray(raw[2]), np.asarray(single),
                                equal_nan=True, atol=1e-5)

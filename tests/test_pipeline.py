@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from stereo_match_tpu.config import DisparityConfig
-from stereo_match_tpu.data.ply import read_ply
-from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-from stereo_match_tpu.eval.metrics import bad_pixel_rate, end_point_error
-from stereo_match_tpu.pipeline.stereo import (
+from stereo_match.config import DisparityConfig
+from stereo_match.data.ply import read_ply
+from stereo_match.data.synthetic import box_scene, random_dot_pair
+from stereo_match.eval.metrics import bad_pixel_rate, end_point_error
+from stereo_match.pipeline.stereo import (
     StereoMatcher, compute_disparity, run_pipeline,
 )
 
@@ -116,8 +116,8 @@ def test_compute_disparity_caches_matcher():
     """Repeat calls with an equal config must reuse one matcher instance
     (round-3 judge finding: a fresh StereoMatcher per call re-traced the
     whole pipeline every time)."""
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.pipeline import stereo as st
+    from stereo_match.config import DisparityConfig
+    from stereo_match.pipeline import stereo as st
 
     gt = box_scene(32, 64, 2.0, 8.0)
     left, right = random_dot_pair(32, 64, gt, seed=5)

@@ -13,13 +13,13 @@ import json
 import numpy as np
 import pytest
 
-from stereo_match_tpu.cli.main import main
-from stereo_match_tpu.core.camera import (_ARKIT_CAM_TO_CV,
-                                          _WORLD_TO_ARKIT_WORLD,
-                                          intrinsic_from_params, rodrigues)
-from stereo_match_tpu.data.image import image_save
-from stereo_match_tpu.data.raytrace import (default_scene, render_view,
-                                            scene_surface_distance)
+from stereo_match.cli.main import main
+from stereo_match.core.camera import (_ARKIT_CAM_TO_CV,
+                                      _WORLD_TO_ARKIT_WORLD,
+                                      intrinsic_from_params, rodrigues)
+from stereo_match.data.image import image_save
+from stereo_match.data.raytrace import (default_scene, render_view,
+                                        scene_surface_distance)
 
 H, W = 240, 360
 
@@ -59,13 +59,13 @@ def test_pose_driven_3d_reconstruction(tmp_path):
                  "--output", npz, "--mode", "LL"]) == 0
 
     # the ingestion round-trip must reproduce the OpenCV poses exactly
-    from stereo_match_tpu.data.arkit import load_npz_frames
+    from stereo_match.data.arkit import load_npz_frames
     fr = load_npz_frames(npz)
     np.testing.assert_allclose(fr[0]["extrinsic"], pose_l, atol=1e-9)
     np.testing.assert_allclose(fr[1]["extrinsic"], pose_r, atol=1e-9)
 
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.pipeline.stereo import run_pipeline
+    from stereo_match.config import DisparityConfig
+    from stereo_match.pipeline.stereo import run_pipeline
     cfg = DisparityConfig(num_disparities=48, uniqueness_ratio=10,
                           disp12_max_diff=1, wls=False,
                           speckle_window_size=0)
@@ -94,6 +94,6 @@ def test_pose_driven_3d_reconstruction(tmp_path):
     assert p80 < 0.5, f"p80 surface distance {p80}"
 
     # committed-artifact contract: the PLY exists and round-trips
-    from stereo_match_tpu.data.ply import read_ply
+    from stereo_match.data.ply import read_ply
     verts, _ = read_ply(ply)
     assert len(verts) > 1000

@@ -4,7 +4,7 @@ import cv2
 import numpy as np
 import pytest
 
-from stereo_match_tpu.core.camera import (
+from stereo_match.core.camera import (
     arkit_to_opencv_extrinsic,
     check_epipoles,
     portrait_swap_principal_point,
@@ -12,7 +12,7 @@ from stereo_match_tpu.core.camera import (
     rodrigues,
     rotation_to_vector,
 )
-from stereo_match_tpu.core.rectify import (
+from stereo_match.core.rectify import (
     rectification_maps,
     rectify_pair,
     remap_bilinear,
@@ -179,7 +179,7 @@ def test_rectify_pair_rejects_forward_motion():
     """The epipole gate (reference stereo_vision.py:12-47) must reject a
     forward-motion pair, where planar rectification is degenerate."""
     import pytest
-    from stereo_match_tpu.core.rectify import rectify_pair
+    from stereo_match.core.rectify import rectify_pair
     K = np.array([[200.0, 0, 64], [0, 200.0, 48], [0, 0, 1]])
     pose_l = np.eye(4)
     pose_r = np.eye(4)

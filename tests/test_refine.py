@@ -5,11 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from stereo_match_tpu.ops.filters import (
+from stereo_match.ops.filters import (
     bilateral_filter, gaussian_blur, image_measure, nl_means_denoise, unsharp_mask,
 )
-from stereo_match_tpu.ops.speckle import speckle_filter
-from stereo_match_tpu.ops.wls import (
+from stereo_match.ops.speckle import speckle_filter
+from stereo_match.ops.wls import (
     _tridiagonal_smooth_rows, fast_global_smoother, lr_confidence,
     wls_filter_disparity,
 )
@@ -172,106 +172,11 @@ def test_speckle_unconverged_keeps_all():
     np.testing.assert_array_equal(np.isfinite(out), np.isfinite(d))
 
 
-def test_fgs_solve_pallas_matches_tridiagonal():
-    """One Pallas Thomas solve vs the lax.scan reference: identical
-    per-step math => equal to within FMA-fusion ulps (~1e-7; the scan and
-    the unrolled kernel compile with different fused multiply-adds, so
-    exact bit-equality is not attainable for float division chains)."""
-    from stereo_match_tpu.ops.pallas_wls import (_scan_weights,
-                                                 fgs_solve_pallas)
-    rng = np.random.default_rng(0)
-    H_, W_ = 21, 45
-    f = rng.normal(size=(H_, W_)).astype(np.float32)
-    w = rng.uniform(0, 1, (H_, W_ - 1)).astype(np.float32)
-    lam = jnp.float32(190.476)
-    want = np.asarray(_tridiagonal_smooth_rows(jnp.asarray(f),
-                                               jnp.asarray(w), lam))
-    wp, wn = _scan_weights(jnp.swapaxes(jnp.asarray(w), 0, 1))
-    got = np.asarray(fgs_solve_pallas(
-        jnp.swapaxes(jnp.asarray(f), 0, 1)[None], wp, wn, lam,
-        interpret=True))[0].T
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
-
-
-def test_fgs_pallas_matches_xla():
-    """Composed 3-iteration FGS schedule: ulp noise is amplified by the
-    strongly-smoothing (ill-conditioned) lambda ladder, so tolerance is
-    wider than the single-solve test; plumbing bugs (weights, schedule,
-    transposes) would show as O(1) errors."""
-    from stereo_match_tpu.ops.pallas_wls import fast_global_smoother_pallas
-    rng = np.random.default_rng(3)
-    H_, W_ = 21, 45
-    guide = rng.uniform(0, 255, (H_, W_)).astype(np.float32)
-    a = rng.normal(size=(H_, W_)).astype(np.float32)
-    b = rng.uniform(0, 1, (H_, W_)).astype(np.float32)
-    got = np.asarray(fast_global_smoother_pallas(
-        jnp.stack([jnp.asarray(a), jnp.asarray(b)]), jnp.asarray(guide),
-        8000.0, 8.0, num_iter=3, interpret=True))
-    want_a = np.asarray(fast_global_smoother(jnp.asarray(a),
-                                             jnp.asarray(guide), 8000.0, 8.0, 3))
-    want_b = np.asarray(fast_global_smoother(jnp.asarray(b),
-                                             jnp.asarray(guide), 8000.0, 8.0, 3))
-    np.testing.assert_allclose(got[0], want_a, rtol=1e-3, atol=2e-4)
-    np.testing.assert_allclose(got[1], want_b, rtol=1e-3, atol=2e-4)
-
-
-def test_fgs_pallas_padded_shapes():
-    """Padding rows/lanes must not perturb the solve (decoupled chain)."""
-    from stereo_match_tpu.ops.pallas_wls import fast_global_smoother_pallas
-    rng = np.random.default_rng(4)
-    for H_, W_ in [(8, 128), (9, 130), (16, 127)]:
-        guide = rng.uniform(0, 255, (H_, W_)).astype(np.float32)
-        a = rng.normal(size=(H_, W_)).astype(np.float32)
-        got = np.asarray(fast_global_smoother_pallas(
-            jnp.asarray(a)[None], jnp.asarray(guide), 1000.0, 4.0,
-            num_iter=2, interpret=True))[0]
-        want = np.asarray(fast_global_smoother(jnp.asarray(a),
-                                               jnp.asarray(guide),
-                                               1000.0, 4.0, 2))
-        np.testing.assert_allclose(got, want, rtol=1e-3, atol=2e-4)
-
-
-def test_speckle_pallas_matches_xla():
-    """Pallas speckle (interpret mode) removes exactly the same pixels as
-    the XLA associative-scan + segment_sum reference."""
-    from stereo_match_tpu.ops.pallas_speckle import speckle_filter_pallas
-    rng = np.random.default_rng(11)
-    for H_, W_ in [(40, 130), (17, 33), (23, 257)]:
-        d = rng.normal(10, 0.2, (H_, W_)).astype(np.float32)
-        d[rng.uniform(size=d.shape) < 0.25] = np.nan
-        d[rng.uniform(size=d.shape) < 0.1] += 50
-        for T in (5, 30):
-            want = np.asarray(speckle_filter(jnp.asarray(d), T, 1.0))
-            got = np.asarray(speckle_filter_pallas(jnp.asarray(d), T, 1.0,
-                                                   interpret=True))
-            np.testing.assert_array_equal(np.isfinite(got),
-                                          np.isfinite(want))
-            np.testing.assert_array_equal(got[np.isfinite(got)],
-                                          want[np.isfinite(want)])
-
-
-def test_speckle_pallas_cyclic_blobs():
-    """Small blobs containing cycles (2x2 blocks, rings) must still be
-    counted exactly (the spanning-tree delivery handles cycles; pure
-    leaf-peeling would not)."""
-    from stereo_match_tpu.ops.pallas_speckle import speckle_filter_pallas
-    d = np.full((24, 140), np.nan, np.float32)
-    d[2:4, 2:4] = 7.0            # 2x2 block: size 4
-    d[8:13, 8:13] = 7.0          # 5x5 block minus center: ring with hole
-    d[10, 10] = np.nan           # size 24
-    d[16:22, 100:120] = 7.0      # 6x20 = 120: large, keep
-    for T in (5, 25, 100):
-        want = np.asarray(speckle_filter(jnp.asarray(d), T, 1.0))
-        got = np.asarray(speckle_filter_pallas(jnp.asarray(d), T, 1.0,
-                                               interpret=True))
-        np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
-
-
 def test_wls_confidence_cv2_semantics():
     """The cv2-DisparityWLSFilter confidence map (round-4 judge finding
     #8: the soft exponential was parity in name only): hard LRC gate x
     zero bands around depth discontinuities, validity-masked."""
-    from stereo_match_tpu.ops.wls import wls_confidence_cv2
+    from stereo_match.ops.wls import wls_confidence_cv2
 
     H, W = 40, 120
     dl = np.full((H, W), 10.0, np.float32)
@@ -314,10 +219,10 @@ def test_wls_lr_confidence_wiring():
     stand-in, the cv2 map zeroes depth-discontinuity bands even for
     LR-consistent pixels, so the filtered map changes near the box edges
     with or without the matcher's own disp12 gate — the measured
-    occlusion-band quality effect is recorded in ACCURACY.json."""
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.data.synthetic import box_scene, random_dot_pair
-    from stereo_match_tpu.pipeline.stereo import _match_core
+    occlusion-band quality effect is measured by tools/accuracy_eval.py."""
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.synthetic import box_scene, random_dot_pair
+    from stereo_match.pipeline.stereo import _match_core
 
     H, W = 96, 224
     gt = box_scene(H, W, 6.0, 14.0)

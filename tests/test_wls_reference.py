@@ -19,8 +19,8 @@ same 0-255 gray scale OpenCV uses (reference call:
 import numpy as np
 import pytest
 
-from stereo_match_tpu.ops.wls import (fast_global_smoother,
-                                      wls_filter_disparity)
+from stereo_match.ops.wls import (fast_global_smoother,
+                                  wls_filter_disparity)
 
 
 def _dense_line_solve(f, w, lam):

@@ -1,12 +1,12 @@
 """Full-resolution accuracy artifact: ours vs cv2.StereoSGBM at
 production settings (settings.ini defaults), KITTI resolution.
 
-Writes ACCURACY.json (committed). Run on the real TPU:
+Writes ACCURACY.json to the current directory. Run it on the GPU:
 
-    nohup python tools/accuracy_eval.py > /tmp/accuracy.log 2>&1 &
+    python tools/accuracy_eval.py
 
 cv2 runs on the host CPU as the oracle (the reference's actual matcher);
-the framework runs its normal TPU path.
+the framework runs its normal device path.
 """
 
 import json
@@ -24,17 +24,17 @@ H, W, D = 375, 1242, 128
 def main() -> int:
     import jax
 
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.data.synthetic import (adversarial_pair, box_scene,
-                                                 multi_box_scene,
-                                                 random_dot_pair,
-                                                 slanted_scene)
-    from stereo_match_tpu.eval.parity import (opencv_sgbm_disparity,
-                                              parity_report)
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.config import DisparityConfig
+    from stereo_match.data.synthetic import (adversarial_pair, box_scene,
+                                             multi_box_scene,
+                                             random_dot_pair,
+                                             slanted_scene)
+    from stereo_match.eval.parity import (opencv_sgbm_disparity,
+                                          parity_report)
+    from stereo_match.pipeline.stereo import StereoMatcher
 
     # (gt, pair_fn) per scene: the first two are the easy round-2 scenes;
-    # the rest are ADVERSARIAL (VERDICT round 2 #2): textureless bands,
+    # the rest are ADVERSARIAL: textureless bands,
     # repeated/periodic texture, left-right photometric asymmetry
     # (gain/bias/vignette + unequal noise), and large multi-box occlusions
     def dots(gt, **kw):
@@ -67,8 +67,7 @@ def main() -> int:
                           wls=False)
     cfg_speckle = cfg.replace(speckle_window_size=100, speckle_range=2)
     # one compiled matcher per distinct config, reused for every scene —
-    # a fresh StereoMatcher per row re-traces and pays a full remote
-    # Mosaic compile (~10 min/row through the compile server)
+    # a fresh StereoMatcher per row would re-trace and re-compile
     matchers = {"": StereoMatcher(cfg),
                 "+speckle": StereoMatcher(cfg_speckle)}
 
@@ -103,10 +102,10 @@ def main() -> int:
     # learned cost vs census with the shipped checkpoint (same SGM stack),
     # clean + noisy KITTI-res scenes — the reference's pretrained-MC-CNN
     # capability (mc_cnn/script.py:9) with quality evidence
-    from stereo_match_tpu.costs import MCCNNCost
-    from stereo_match_tpu.data.synthetic import rough_scene
-    from stereo_match_tpu.eval.metrics import bad_pixel_rate
-    from stereo_match_tpu.models.mccnn import load_default_params, make_model
+    from stereo_match.costs import MCCNNCost
+    from stereo_match.data.synthetic import rough_scene
+    from stereo_match.eval.metrics import bad_pixel_rate
+    from stereo_match.models.mccnn import load_default_params, make_model
     model = make_model("fast")
     params = load_default_params("fast")
     cfg_m = cfg.replace(cost="mccnn")
@@ -126,14 +125,14 @@ def main() -> int:
                                         "mccnn_bad3": round(b_m, 4)}
         print(f"mccnn_vs_census noise={noise:4.1f} census={b_c:.4f} "
               f"mccnn={b_m:.4f}", flush=True)
-    # OUT-OF-RENDERER transfer (VERDICT round 2 #7 / round 4 #2): the
+    # OUT-OF-RENDERER transfer: the
     # RAY-TRACED renderer family is fully held out of the training pool
     # (make_training_pool mixes dots / shaded-shapes / adversarial), so
     # these scenes' statistics — smooth procedural 3-D texture,
     # Lambertian shading, real parallax occlusion — are honest transfer
     # evidence. Reported whichever way it lands; the enforced gate lives
     # in tests/test_mccnn.py::test_checkpoint_transfers_out_of_renderer.
-    from stereo_match_tpu.data.raytrace import render_stereo as _rs
+    from stereo_match.data.raytrace import render_stereo as _rs
     oor = {}
     for tag, kw in (("clean", {}),
                     ("noise_gain", {"noise": 6.0, "gain_right": 1.2})):
@@ -152,7 +151,7 @@ def main() -> int:
                    "evidence for the learned cost")
     out["mccnn_out_of_renderer"] = oor
 
-    mc_block["checkpoint"] = "stereo_match_tpu/models/weights/mccnn_fast.npz"
+    mc_block["checkpoint"] = "stereo_match/models/weights/mccnn_fast.npz"
     mc_block["pass"] = bool(
         mc_block["noise_0"]["mccnn_bad3"]
         <= mc_block["noise_0"]["census_bad3"] + 0.03
@@ -163,7 +162,7 @@ def main() -> int:
     # ---- ray-traced perspective stereo (round-3 'real-image evidence'
     # finding): disparity emerges from scene depth, occlusion from real
     # parallax — the physics of the reference's rectified captures ----
-    from stereo_match_tpu.data.raytrace import render_stereo
+    from stereo_match.data.raytrace import render_stereo
     rt_block = {}
     for tag, kw in (("clean", {}),
                     ("sensor_noise_gain", {"noise": 6.0,
@@ -185,7 +184,7 @@ def main() -> int:
     # (settings.ini num_disparities=160, full-res ARKit frames —
     # round-4 judge missing item #1). 160 is not a multiple of 128, so
     # this row exercises the tile-padding paths on real hardware. ----
-    from stereo_match_tpu.data.synthetic import slanted_scene as _slant
+    from stereo_match.data.synthetic import slanted_scene as _slant
     Hp, Wp, Dp = 720, 1280, 160
     gt_p = _slant(Hp, Wp, 5.0, 110.0)
     lp, rp = random_dot_pair(Hp, Wp, gt_p, blur=1.0, seed=3)
@@ -209,8 +208,8 @@ def main() -> int:
     # StereoBM vs cv2.StereoBM_create: true BM semantics (x-Sobel
     # prefilter, SAD WTA, texture threshold), reference fallback mode
     # `stereo_vision/stereo_vision.py:165-166`
-    from stereo_match_tpu.eval.parity import opencv_bm_disparity
-    from stereo_match_tpu.pipeline.block_matching import BlockMatcher
+    from stereo_match.eval.parity import opencv_bm_disparity
+    from stereo_match.pipeline.block_matching import BlockMatcher
     bm_cfg = DisparityConfig(num_disparities=D, block_size=21,
                              speckle_window_size=0, disp12_max_diff=-1,
                              wls=False)
@@ -237,8 +236,8 @@ def main() -> int:
     # ELAS vs the cv2 SGBM oracle and vs plain census-SGM: does the
     # slanted-plane prior help on slanted/occlusion scenes?
     # (reference: `libelas/script.py:9`)
-    from stereo_match_tpu.eval.metrics import end_point_error
-    from stereo_match_tpu.pipeline.elas import elas_match
+    from stereo_match.eval.metrics import end_point_error
+    from stereo_match.pipeline.elas import elas_match
     elas_block = {}
     for name, gt in (("slanted", gt_slant), ("multi_box", gt_multi)):
         left, right = random_dot_pair(H, W, gt, blur=1.0, seed=41)
@@ -278,8 +277,8 @@ def main() -> int:
     # full-resolution render -> internal-resize inference -> affine
     # calibration over VALID GT (monocular scale/shift is unobservable;
     # occluded pixels have no GT) vs the best constant predictor.
-    from stereo_match_tpu.data.raytrace import render_stereo as _rs2
-    from stereo_match_tpu.models import monodepth as md
+    from stereo_match.data.raytrace import render_stereo as _rs2
+    from stereo_match.models import monodepth as md
     try:
         mono_model, mono_params = md.load_default()
         mono_block = {}
@@ -370,7 +369,7 @@ def main() -> int:
             print(f"mccnn_accurate noise={noise:4.1f} bad3={b_a:.4f}",
                   flush=True)
         acc_block["checkpoint"] = \
-            "stereo_match_tpu/models/weights/mccnn_accurate.npz"
+            "stereo_match/models/weights/mccnn_accurate.npz"
         out["mccnn_accurate"] = acc_block
     except FileNotFoundError:
         out["mccnn_accurate"] = {"note": "no shipped checkpoint"}
@@ -400,8 +399,7 @@ def main() -> int:
     out["worst_bad3_delta"] = worst
     out["target"] = "bad3_delta <= 0.02 (BASELINE.md)"
     out["pass"] = bool(worst <= 0.02 and mc_block["pass"])
-    with open(os.path.join(os.path.dirname(os.path.dirname(
-            os.path.abspath(__file__))), "ACCURACY.json"), "w") as f:
+    with open("ACCURACY.json", "w") as f:
         json.dump(out, f, indent=2)
     print(f"worst bad3 delta: {worst:+.4f}  pass={out['pass']}")
     return 0 if out["pass"] else 1

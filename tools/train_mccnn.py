@@ -2,14 +2,14 @@
 
 Trains the `fast` feature tower on a multi-scene synthetic pool (box /
 slanted / rough-terrain disparity, noise and blur augmentation) and writes
-``stereo_match_tpu/models/weights/mccnn_fast.npz`` — the framework's analog
+``stereo_match/models/weights/mccnn_fast.npz`` — the framework's analog
 of the reference's pretrained ``net_kitti_fast_-a_train_all.t7``
 (``/root/reference/mc_cnn/script.py:9``).
 
     JAX_PLATFORMS= JAX_PLATFORM_NAME=cpu python tools/train_mccnn.py
 
 Then evaluates the checkpoint against the census cost on held-out noisy
-scenes (the numbers quoted in ACCURACY.json's ``mccnn_vs_census`` block).
+scenes (the ``mccnn_vs_census`` block of tools/accuracy_eval.py).
 """
 
 import argparse
@@ -34,7 +34,7 @@ def main():
 
     import jax
     import numpy as np
-    from stereo_match_tpu.models import mccnn
+    from stereo_match.models import mccnn
 
     A, P, N = mccnn.make_training_pool(args.scenes, seed=args.seed)
     print(f"pool: {len(A)} triplets", file=sys.stderr)
@@ -54,12 +54,12 @@ def main():
     print(f"wrote {out}", file=sys.stderr)
 
     # held-out eval: learned cost vs census through the same SGM pipeline
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.costs import MCCNNCost
-    from stereo_match_tpu.data.synthetic import (box_scene, random_dot_pair,
-                                                 rough_scene)
-    from stereo_match_tpu.eval.metrics import bad_pixel_rate
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.config import DisparityConfig
+    from stereo_match.costs import MCCNNCost
+    from stereo_match.data.synthetic import (box_scene, random_dot_pair,
+                                             rough_scene)
+    from stereo_match.eval.metrics import bad_pixel_rate
+    from stereo_match.pipeline.stereo import StereoMatcher
     cfg_c = DisparityConfig(num_disparities=32, cost="census",
                             uniqueness_ratio=15, disp12_max_diff=1,
                             wls=False)
@@ -86,9 +86,9 @@ def main():
     # out-of-renderer transfer: the RAY-TRACED family is fully held out
     # of the training pool (see make_training_pool — training mixes
     # dots / shaded-shapes / adversarial), so this is honest
-    # generalization evidence (the gate ACCURACY.json / test_mccnn.py
+    # generalization evidence (the gate tools/accuracy_eval.py / test_mccnn.py
     # enforce: learned <= census, clean AND corrupted)
-    from stereo_match_tpu.data.raytrace import render_stereo
+    from stereo_match.data.raytrace import render_stereo
     oor = {}
     for tag, kw in (("clean", {}),
                     ("noise_gain", {"noise": 6.0, "gain_right": 1.2})):

@@ -4,7 +4,7 @@ No ground truth enters the loss: the network is DISTILLED from the
 framework's own stereo matcher (mono-from-stereo distillation — the
 pure photometric objective cannot localize disparity on smooth
 low-texture scenes that census+SGM still matches fine). Writes
-``stereo_match_tpu/models/weights/monodepth_small.npz`` (PRIMARY:
+``stereo_match/models/weights/monodepth_small.npz`` (PRIMARY:
 ray-traced domain) or ``monodepth_small_shaded.npz``
 (``--domain mixed``) — the two-domain analog of the reference's
 external TF checkpoints (kitti & cityscapes,
@@ -22,7 +22,7 @@ tex_scale`` — a higher-resolution camera seeing the same world) through
 training statistics and the affine calibration (mono depth is defined
 up to scale) absorbs the disparity-range difference.
 
-    python tools/train_monodepth.py                      # TPU (fast) or CPU
+    python tools/train_monodepth.py                      # GPU (fast) or CPU
     python tools/train_monodepth.py --domain raytrace
 
 Evaluation (GT used only here): affine-calibrated EPE against the best
@@ -52,14 +52,14 @@ def _scene_native(seed, domain="mixed"):
     for the photometric warp loss.
     """
     import numpy as np
-    from stereo_match_tpu.data.synthetic import (multi_box_scene,
-                                                 random_dot_pair,
-                                                 rough_scene,
-                                                 shaded_shapes_pair)
+    from stereo_match.data.synthetic import (multi_box_scene,
+                                             random_dot_pair,
+                                             rough_scene,
+                                             shaded_shapes_pair)
     rng = np.random.default_rng(seed)
     kind = 0 if domain == "raytrace" else (seed % 3)
     if domain == "raytrace" or (kind == 0 and seed % 6 == 0):
-        from stereo_match_tpu.data.raytrace import render_stereo
+        from stereo_match.data.raytrace import render_stereo
         l, r, gt = render_stereo(H, W, seed=seed,
                                  noise=float(rng.choice([0.0, 3.0])))
         gt = np.where(np.isfinite(gt), gt, np.nanmedian(gt))
@@ -107,8 +107,8 @@ def main():
 
     import jax
     import numpy as np
-    from stereo_match_tpu.models import monodepth as md
-    from stereo_match_tpu.models.mccnn import save_params_npz
+    from stereo_match.models import monodepth as md
+    from stereo_match.models.mccnn import save_params_npz
 
     model = md.make_model(args.arch)
     params = md.init_params(model, jax.random.PRNGKey(0), (1, H, W, 3))
@@ -125,8 +125,8 @@ def main():
     # truth anywhere: mono-from-stereo distillation — the photometric
     # objective alone cannot localize disparity on the smooth shaded
     # scenes census+SGM still matches fine)
-    from stereo_match_tpu.config import DisparityConfig
-    from stereo_match_tpu.pipeline.stereo import StereoMatcher
+    from stereo_match.config import DisparityConfig
+    from stereo_match.pipeline.stereo import StereoMatcher
     matcher = StereoMatcher(DisparityConfig(num_disparities=32,
                                             uniqueness_ratio=15,
                                             disp12_max_diff=1, wls=False))
@@ -154,14 +154,14 @@ def main():
     print(f"wrote {out}", file=sys.stderr)
 
     # held-out eval at FULL resolution through the inference-time
-    # internal resize — the ACCURACY.json protocol (structures scaled
+    # internal resize — the tools/accuracy_eval.py protocol (structures scaled
     # with resolution: same world, higher-resolution camera)
-    from stereo_match_tpu.data.synthetic import rough_scene, shaded_shapes_pair
+    from stereo_match.data.synthetic import rough_scene, shaded_shapes_pair
     corrs, cal_epes, const_epes = [], [], []
     for s in range(900, 906):
         gt = rough_scene(HF, WF, s, 4.0, 80.0, cell=128)
         if args.domain == "raytrace":
-            from stereo_match_tpu.data.raytrace import render_stereo
+            from stereo_match.data.raytrace import render_stereo
             l, _, gt = render_stereo(HF, WF, seed=s)
         else:
             l, _ = shaded_shapes_pair(HF, WF, gt, seed=s,
